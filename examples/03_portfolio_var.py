@@ -1,10 +1,13 @@
 """A correlated portfolio risk model end-to-end: QMC, correlation
 induction, a streamed VaR profile at 1e9 draws, and checkpoint/resume.
 
-Run: python examples/03_portfolio_var.py   (the 1e9 step wants a TPU;
-everything also runs — slowly — on CPU at reduced sizes)
+Run: python examples/03_portfolio_var.py          (reduced sizes, any backend)
+     python examples/03_portfolio_var.py --full   (1e9 draws; wants a GPU)
 """
 
+import argparse
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -41,10 +44,12 @@ def build_portfolio():
 
 
 def main():
-    import jax
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-    tail_draws = 10**9 if on_tpu else 10**6
+    parser = argparse.ArgumentParser()
+    parser.add_argument(
+        "--full", action="store_true", help="deployment sizes (1e9 draws)"
+    )
+    full = parser.parse_args().full
+    tail_draws = 10**9 if full else 10**6
     portfolio, assets = build_portfolio()
 
     # 1. Quasi-Monte Carlo for the smooth-statistic phase: Sobol points
@@ -58,7 +63,7 @@ def main():
     t0 = time.perf_counter()
     stats = portfolio.estimate(
         tail_draws,
-        block_size=1 << 26 if on_tpu else 1 << 18,
+        block_size=1 << 26 if full else 1 << 18,
         random_state=0,
         quantiles=(0.01, 0.05, 0.5),
     )
@@ -76,7 +81,7 @@ def main():
     #    whole reason VaR99 != 2.33 sigma here).
     seq = portfolio.estimate(
         1 << 16,
-        block_size=1 << 18 if not on_tpu else 1 << 22,
+        block_size=1 << 22 if full else 1 << 18,
         random_state=1,
         target_rel_sem=0.005,
         moments=True,
@@ -94,8 +99,8 @@ def main():
     nodes = [*assets.values(), portfolio]
     joint = estimate_many(
         nodes,
-        1 << 18 if not on_tpu else 1 << 24,
-        block_size=1 << 16 if not on_tpu else 1 << 22,
+        1 << 24 if full else 1 << 18,
+        block_size=1 << 22 if full else 1 << 16,
         random_state=2,
         covariance=True,
     )
@@ -109,7 +114,9 @@ def main():
     # 5. Checkpoint the sampled state and restore it into a rebuilt graph
     #    (the structural fingerprint refuses a mismatched model).
     portfolio.sample(1 << 14, random_state=3)
-    path = checkpoint.save(portfolio, "/tmp/portfolio_state.npz")
+    path = checkpoint.save(
+        portfolio, os.path.join(tempfile.gettempdir(), "portfolio_state.npz")
+    )
     rebuilt, _ = build_portfolio()
     checkpoint.load(rebuilt, path)
     print(
@@ -130,11 +137,11 @@ def main():
 
     ck = estimate(
         portfolio,
-        1 << 18 if not on_tpu else 1 << 24,
-        block_size=1 << 15 if not on_tpu else 1 << 22,
+        1 << 24 if full else 1 << 18,
+        block_size=1 << 22 if full else 1 << 15,
         random_state=4,
-        checkpoint="/tmp/portfolio_stream.ckpt.npz",
-        checkpoint_every=1 << 17 if not on_tpu else 1 << 23,
+        checkpoint=os.path.join(tempfile.gettempdir(), "portfolio_stream.ckpt.npz"),
+        checkpoint_every=1 << 23 if full else 1 << 17,
     )
     print(
         f"checkpointed streamed mean {ck['mean']:,.0f} "

@@ -15,7 +15,7 @@ throughput is prohibitive):
    vmapped program under common random numbers.
    "What does the P95 curve actually look like across rate scenarios?"
 
-Run: python examples/04_sensitivity.py   (seconds on CPU or TPU)
+Run: python examples/04_sensitivity.py   (seconds on CPU or GPU)
 """
 
 import numpy as np

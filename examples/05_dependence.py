@@ -4,7 +4,7 @@ copulas, and why tail dependence changes risk numbers.
 The classic failure of Gaussian dependence (Iman-Conover included): at
 any correlation short of 1, joint extremes decouple — the probability
 that two risks blow up TOGETHER goes to zero at extreme levels.  Real
-portfolios crash together.  Two remedies, both TPU-compiled here:
+portfolios crash together.  Two remedies, both compiled here:
 
 1. ``StudentTCopula(df)`` — drop-in correlator: same marginals, same
    Kendall rank agreement, but coupled tails.
@@ -40,9 +40,9 @@ def main():
     corr = np.array([[1.0, 0.6], [0.6, 1.0]])
     loss = (equities + credit).correlate(equities, credit, corr_mat=corr)
 
-    var_gauss, mean_g = var_of(loss, executor="xla")
-    var_t4, _ = var_of(loss, executor="xla", correlator=StudentTCopula(df=4))
-    var_t2, _ = var_of(loss, executor="xla", correlator=StudentTCopula(df=2.5))
+    var_gauss, mean_g = var_of(loss)
+    var_t4, _ = var_of(loss, correlator=StudentTCopula(df=4))
+    var_t2, _ = var_of(loss, correlator=StudentTCopula(df=2.5))
 
     print(f"portfolio mean               : {mean_g:8.4f} (identical marginals)")
     print(f"VaR {LEVEL:.1%}  Gaussian copula   : {var_gauss:8.4f}")

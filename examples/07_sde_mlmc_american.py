@@ -9,7 +9,7 @@ Three capabilities stacked on the path-node machinery:
   samples on coarse grids via coupled corrections (cost reported
   against plain MC at the same accuracy),
 * ``american_price`` — Longstaff-Schwartz optimal stopping on any path
-  node, the whole backward induction one ``lax.scan`` of MXU
+  node, the whole backward induction one ``lax.scan`` of matmul
   regressions, two-pass for a foresight-free lower bound.
 
 Run: python examples/07_sde_mlmc_american.py

@@ -11,7 +11,7 @@ feature (streaming, QMC, replicates, meshes) composes unchanged.
 The scipy-driven reference has no variance-reduction machinery; at
 these probabilities it simply cannot produce an answer.
 
-Run: python examples/08_rare_events.py   (seconds on CPU or TPU)
+Run: python examples/08_rare_events.py   (seconds on CPU or GPU)
 """
 
 import numpy as np

@@ -1,11 +1,11 @@
-"""probabilit-tpu: a TPU-native Monte Carlo modeling framework.
+"""probabilit-tpu: an accelerator-native Monte Carlo modeling framework.
 
 A ground-up JAX/XLA re-design with the capabilities of the reference
 ``probabilit`` library (graph-based Monte Carlo modeling): lazy
 computational graphs of distributions, constants and transforms; inverse-CDF
 sampling kernels per distribution family; quasi-Monte Carlo sequences;
 rank-based correlation induction; all compiled into single XLA programs
-with the sample axis shardable over a TPU mesh.
+with the sample axis shardable over a device mesh.
 
 Public API mirrors the reference ``probabilit/__init__.py``.
 """

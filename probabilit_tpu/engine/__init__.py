@@ -2,8 +2,7 @@
 
 Submodules: ``compile`` (graph -> XLA program), ``sampler`` (public
 sample() orchestration), ``streaming`` (mega-batch blocks + O(1)-memory
-estimation), ``checkpoint`` (sampled-state save/load), ``pallas_exec``
-(single-megakernel executor).
+estimation), ``checkpoint`` (sampled-state save/load).
 """
 
 from probabilit_tpu.engine import checkpoint, streaming  # noqa: F401

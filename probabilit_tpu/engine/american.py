@@ -8,17 +8,17 @@ backward induction where each exercise date's continuation value is a
 polynomial regression of the discounted future cashflow on the current
 state, fitted over in-the-money paths.
 
-TPU shape: the whole backward induction is ONE ``lax.scan`` over
+Device shape: the whole backward induction is ONE ``lax.scan`` over
 reversed time whose body is a ``(B, n) @ (n, B)`` Gram matmul, a
 ``B x B`` ridge solve (B = the polynomial basis size, trivially small
-while the matmuls ride the MXU), and elementwise exercise selects on
+while the matmuls run as dense products), and elementwise exercise selects on
 the ``(n,)`` value carry — no per-date Python, no host round trips.
 The regression state is STANDARDISED per date over the ITM paths
 (fit-time mean/std travel with the weights), which keeps the monomial
-Gram well-conditioned in float32 — measured necessary on TPU, where raw
-``s/s0`` monomials left the LU solve backend-divergent and biased the
-two-pass bound low; all statistics-bearing matmuls are pinned to
-float32 precision (TPU's default rounds matmul inputs to bfloat16).
+Gram well-conditioned in float32 — raw ``s/s0`` monomials were measured
+to leave the LU solve backend-divergent and to bias the two-pass bound
+low on an accelerator; all statistics-bearing matmuls are pinned to
+float32 precision (the GPU's default runs float32 matmuls in TF32).
 
 Estimation is two-pass by default: pass 1 fits the per-date regression
 weights, pass 2 applies the fitted exercise POLICY to an independent
@@ -178,8 +178,9 @@ def _standardize(s_k, itm, dtype):
     Standardising the regression state per exercise date is what keeps
     the monomial Gram matrix well-conditioned in float32: raw monomials
     of s/s0 produced backend-dependent LU solutions (measured: the SAME
-    paths gave materially different weights on TPU vs CPU and a
-    systematically lower two-pass bound on TPU); powers of a zero-mean
+    paths gave materially different weights on an accelerator and on the
+    CPU, and a systematically lower two-pass bound on the accelerator);
+    powers of a zero-mean
     unit-variance state bring the condition number down to O(10).
     """
     cnt = jnp.maximum(itm.sum(), 1.0)

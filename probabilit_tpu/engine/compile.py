@@ -10,7 +10,7 @@ Here all three phases are staged into a single traced function
 ``program(quantiles) -> (outputs, finite_flags)`` and compiled once per
 graph structure:
 
-* transforms fuse into a handful of TPU kernels (no per-node dispatch);
+* transforms fuse into a handful of device kernels (no per-node dispatch);
 * the correlator (Iman-Conover / Cholesky) is spliced into the same
   program, so its sorts/matmuls fuse with sampling;
 * the garbage-collection strategy becomes *output selection*: nodes not
@@ -470,9 +470,9 @@ def build_body(plan, correlator_cls, keep_ids, check_finite=True, generated_ok=F
                 # variant (rank(ppf(ndtr(y))) == rank(y) == the rank the
                 # sorted marginal was placed at), but marginals become
                 # exact iid quantile transforms instead of an order-
-                # statistics multiset, no sorts run (37.8 s -> ~3 s at
-                # (10, 1e8) on v5e), and under a mesh the whole step is
-                # elementwise + one psum'd (K,K) Gram — no all-gathers.
+                # statistics multiset, no sorts run, and under a mesh
+                # the whole step is elementwise + one psum'd (K,K) Gram —
+                # no all-gathers.
                 y = instance._recolor_scores(z)
                 from probabilit_tpu.ops import ppf as _ppf
 

@@ -8,7 +8,7 @@ with everything else in the framework for free — ``estimate()``
 streaming at any size, QMC methods, replicated error bars, device
 meshes, checkpointing.
 
-The design is TPU-first and pdf-free.  Every distribution node in this
+The design is accelerator-first and pdf-free.  Every distribution node in this
 framework draws ``x = F^{-1}(u)`` from a uniform quantile ``u`` — so
 instead of tilting ``x`` (which needs the target pdf, a proposal pdf,
 and family-specific math), we tilt the QUANTILE: draw ``u`` from a

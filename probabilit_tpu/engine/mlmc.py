@@ -15,7 +15,7 @@ step, so ``Var[P_l - P_{l-1}] -> 0`` with level and almost all samples
 run on the cheapest grids.  Total cost drops to O(eps^-2) for Milstein
 (strong order 1) and O(eps^-2 log(eps)^2) for Euler.
 
-TPU shape: ONE jitted fixed-shape kernel per level — a
+Device shape: ONE jitted fixed-shape kernel per level — a
 ``(block, steps_l)`` normal draw, a reshape-sum for the coarse drivers,
 the two ``lax.scan`` discretisations (reusing
 ``SDEPath._path_from_increments``, the same code the ``SDE`` node

@@ -28,19 +28,6 @@ from probabilit_tpu.parallel import mesh as _mesh
 
 __all__ = ["sample", "sample_from_quantiles", "resolve_key"]
 
-_PALLAS_FN_CACHE = {}
-
-
-def _get_pallas_fn(plan, size, keep_ids=None):
-    from probabilit_tpu.engine import pallas_exec
-
-    key = (plan.signature(), size, keep_ids)
-    if key not in _PALLAS_FN_CACHE:
-        if len(_PALLAS_FN_CACHE) > 64:
-            _PALLAS_FN_CACHE.pop(next(iter(_PALLAS_FN_CACHE)))
-        _PALLAS_FN_CACHE[key] = pallas_exec.run_jitted(plan, size, keep_ids)
-    return _PALLAS_FN_CACHE[key]
-
 
 def resolve_key(random_state):
     """Map reference-style ``random_state`` values onto a JAX PRNG key.
@@ -70,83 +57,9 @@ def sample(
     method=None,
     correlator="imanconover",
     gc_strategy=None,
-    executor=None,
 ):
     size = 1 if size is None else int(size)
     plan = _compile.get_plan(sink)
-
-    if executor == "pallas":
-        # Opt-in megakernel path (single kernel, hardware PRNG); falls back
-        # loudly if the graph is not eligible. See engine/pallas_exec.py.
-        from probabilit_tpu.engine import pallas_exec
-
-        keep_ids = (
-            None
-            if gc_strategy is None
-            else frozenset({sink._id} | {node._id for node in gc_strategy})
-        )
-        if (
-            method is not None
-            or keep_ids is None
-            or not pallas_exec.supports(plan, keep_ids)
-        ):
-            raise ValueError(
-                "executor='pallas' requires method=None, a narrow "
-                "gc_strategy keep-list (<= 16 kept nodes; [] keeps just "
-                "the sink), and whitelisted distribution families "
-                "(correlated graphs: at most "
-                f"{pallas_exec._MAX_CORR_K} correlated variables)."
-            )
-        resolved = _compile.resolve_correlator(correlator)
-        ic_cls = _compile.CORRELATOR_MAP["imanconover"]
-        if plan.corr_matrix is not None and not (
-            resolved is ic_cls or type(resolved) is ic_cls
-        ):
-            # The megakernel's correlation induction IS (sort-free)
-            # Iman-Conover; other correlators — including the
-            # StudentTCopula subclass — have different semantics.
-            raise ValueError(
-                "executor='pallas' supports correlator='imanconover' only."
-            )
-        # Library-level environment gate (shared with streaming's auto
-        # eligibility): without it a CPU run surfaces Mosaic's "Only
-        # interpret mode is supported on CPU backend" instead of our own
-        # error.  (Argument/graph validation above fires first — a user
-        # bug is the more actionable error on any platform.)
-        env_issue = pallas_exec.environment_issue()
-        if env_issue is not None:
-            raise ValueError(env_issue)
-        if random_state is None:
-            seed = int(np.random.SeedSequence().entropy % (2**31))
-        elif isinstance(random_state, (int, np.integer)):
-            seed = int(random_state)
-        elif isinstance(random_state, np.random.Generator):
-            seed = int(random_state.integers(2**31))
-        else:
-            raise TypeError(
-                "executor='pallas' takes an int/Generator/None random_state."
-            )
-        # Clear stale samples BEFORE executing: trace-time errors inside
-        # fn(seed) (e.g. the correlated n<=K guard) and compile errors
-        # must not leave a previous run's samples_ attached to nodes
-        # (the XLA path clears before executing, sampler._execute).
-        for node in plan.topo:
-            if hasattr(node, "samples_"):
-                delattr(node, "samples_")
-        fn = _get_pallas_fn(plan, size, keep_ids)
-        outputs, flag = fn(seed)
-        out = outputs[sink._id]
-        # Same contract as the default executor on EVERY graph (Log/Sqrt/
-        # Divide/Power are all whitelisted and can NaN on valid inputs):
-        # the flag is fused into the jitted program, so this costs one
-        # scalar fetch, not an extra dispatch.
-        if not bool(jax.device_get(flag)):
-            raise ValueError("Sampling produced non-finite values.")
-        by_id = {node._id: node for node in plan.topo}
-        for nid, arr in outputs.items():
-            by_id[nid].samples_ = arr
-        return out
-
     key = resolve_key(random_state)
     if method is None:
         # Fast path: uniforms are generated inside the compiled program so

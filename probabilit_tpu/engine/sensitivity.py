@@ -10,7 +10,7 @@ gives exact pathwise (reparameterization) derivatives
     d/dtheta  E[ statistic(sink) ],    samples = f(theta, U),  U fixed
 
 at the cost of one extra compiled program — no finite-difference re-runs,
-no common-random-number plumbing, and the gradient program runs on the TPU
+no common-random-number plumbing, and the gradient program runs on the device
 like any other.  The estimator is the standard pathwise one: unbiased for
 ``statistic="mean"``, consistent for smooth functionals; all draws are
 common random numbers by construction (the quantile matrix is a function
@@ -676,7 +676,6 @@ def sensitivity(
                         sub,
                         block_size,
                         k,
-                        "xla",
                         method_name,
                         q_levels,
                         correlator_cls,
@@ -864,7 +863,7 @@ def _make_block_sampler(plan, pairs, block_size, method_name, lhs_total, body):
     """``sample_block(theta, key, b) -> (block,) f32 sink samples``.
 
     The shared draw machinery of every streamed-gradient builder: draw
-    semantics match ``estimate()``'s XLA executor exactly (per-block
+    semantics match ``estimate()`` exactly (per-block
     threefry folds with ``compile.get_program``'s tags for
     ``method=None``; index-addressable sequence slices at block offsets
     for QMC/antithetic), so streamed values and pass-1/pass-2 splits are
@@ -1213,7 +1212,7 @@ def _build_stream_grad_fn(
     traced trip count) and the merge itself is plain arithmetic.  Exact
     for ``statistic="mean"`` at any ``size``; memory stays O(block).
 
-    Draw semantics match ``estimate()``'s XLA executor exactly:
+    Draw semantics match ``estimate()`` exactly:
     ``method=None`` folds per-block threefry keys through the same
     ``fold_in`` tags as ``compile.get_program``'s in-program RNG, QMC
     methods slice the index-addressable sequence at block offsets — so

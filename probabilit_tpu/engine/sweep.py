@@ -8,7 +8,7 @@ the scenario axis becomes a ``jax.vmap`` batch dimension over the traced
 sampling body (``engine/compile.py:build_body``) with the targeted
 parameters swapped for traced scalars (the ``engine/sensitivity.py``
 slot machinery), so S scenarios x N draws run as one XLA program whose
-inner reductions batch onto the MXU/VPU — no per-scenario dispatch, no
+inner reductions batch on the device — no per-scenario dispatch, no
 per-scenario compile.
 
 Common random numbers are the default: every scenario consumes the SAME

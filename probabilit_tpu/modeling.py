@@ -2,7 +2,7 @@
 
 Users of the reference import everything from ``probabilit.modeling``
 (nodes, transforms, distributions — ``modeling.py:1-1264``); this module
-re-exports the same surface from the TPU-native implementation so models
+re-exports the same surface from the compiled implementation so models
 port with an import rename only.
 """
 

@@ -1,4 +1,4 @@
-"""Canonical benchmark model graphs (BASELINE.md configs).
+"""Canonical benchmark model graphs (bench.py and chip_smoke.py configs).
 
 These mirror the reference's README/tests models and the driver-defined
 benchmark configurations:
@@ -7,7 +7,7 @@ benchmark configurations:
 2. Bird survival composite Poisson->Binomial DAG (README.md:55-62)
 3. Mutual fund 20-year recursion (README.md:68-78)
 4. 10-dim QMC portfolio with Iman-Conover target correlation
-5. The headline 20-node mixed DAG (BASELINE.json north star)
+5. The headline 20-node mixed DAG
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def mixed_dag_20():
 
 
 def mixed_correlated_50():
-    """BASELINE config 5: ~50-node mixed DAG, nearest-corr repair + IC.
+    """~50-node mixed DAG, nearest-corr repair + IC.
 
     Ten correlated drivers with a deliberately *invalid* target correlation
     matrix (inconsistent pairwise specs) so the engine's NCM repair runs,

@@ -1,7 +1,7 @@
 """Distribution node types for the modeling language.
 
 Mirrors the reference node classes (``modeling.py:772-927, 1215-1264``) with
-TPU-native sampling: each node stages an inverse-CDF kernel from
+compiled sampling: each node stages an inverse-CDF kernel from
 ``probabilit_tpu.ops.ppf`` into the compiled program instead of calling
 scipy's ``.ppf`` per node (``modeling.py:805-812``).
 """
@@ -260,7 +260,7 @@ class DiscreteDistribution(AbstractDistribution):
 
     Reference ``modeling.py:885-927``.  Sampling is a ``searchsorted`` into
     the cumulative probabilities on device.  Non-numeric values (e.g.
-    strings) cannot live on TPU: indices are sampled on device and gathered
+    strings) cannot live on the device: indices are sampled on device and gathered
     into the value array on host at the output boundary.
     """
 
@@ -318,7 +318,7 @@ class DiscreteDistribution(AbstractDistribution):
         return idx
 
     def _host_finalizer(self):
-        """Gather non-numeric values on host (strings cannot live on TPU)."""
+        """Gather non-numeric values on host (strings cannot live on the device)."""
         if np.issubdtype(self.values.dtype, np.number):
             return None
         values = self.values

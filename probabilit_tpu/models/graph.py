@@ -9,7 +9,7 @@ The execution model is entirely different from the reference.  The reference
 interprets the DAG node-by-node in Python, each node materialising a NumPy
 array (``modeling.py:586-612``).  Here the whole DAG is *compiled*: a single
 jitted XLA program maps a ``(n, d)`` quantile matrix to every requested node
-output, so transform chains fuse into a handful of TPU kernels and the sample
+output, so transform chains fuse into a handful of device kernels and the sample
 axis can be sharded over a device mesh (see ``probabilit_tpu.engine``).
 
 Each node class therefore carries two things:
@@ -275,7 +275,6 @@ class Node(abc.ABC):
         method=None,
         correlator="imanconover",
         gc_strategy=None,
-        executor=None,
     ):
         """Sample this node; populates ``.samples_`` on ancestors.
 
@@ -287,9 +286,7 @@ class Node(abc.ABC):
         ("imanconover"/"cholesky"/"tcopula"), a Correlator class, or a
         configured instance (e.g. ``StudentTCopula(df=3)``),
         ``gc_strategy`` None (keep everything) or a list
-        of nodes to keep in addition to the sink.  The extra keyword
-        ``executor="pallas"`` opts into the single-megakernel fast path
-        (see ``engine/pallas_exec.py``).
+        of nodes to keep in addition to the sink.
         """
         from probabilit_tpu.engine import sampler
 
@@ -300,7 +297,6 @@ class Node(abc.ABC):
             method=method,
             correlator=correlator,
             gc_strategy=gc_strategy,
-            executor=executor,
         )
 
     def sample_from_quantiles(self, quantiles, correlator="imanconover", gc_strategy=None):
@@ -519,9 +515,7 @@ class Constant(Node, OverloadMixin):
             dtype = config.int_dtype()
         else:
             dtype = config.float_dtype()
-        # ctx.n is an int (XLA executor) or a block shape tuple (Pallas).
-        shape = ctx.n if isinstance(ctx.n, tuple) else (ctx.n,)
-        return jnp.full(shape, self.value, dtype=dtype)
+        return jnp.full((ctx.n,), self.value, dtype=dtype)
 
 
 # =====================================================================

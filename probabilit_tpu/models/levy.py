@@ -19,7 +19,7 @@ construction, like the other path families (models/processes.py):
   parametrisation as ``invgauss(mu = 1/(g delta dt), scale =
   (delta dt)^2)``.
 
-TPU shape: one ``(n, steps)`` inverse-CDF transform for the clock, one
+Device shape: one ``(n, steps)`` inverse-CDF transform for the clock, one
 normal draw, a fused elementwise combine, and a ``cumsum`` — everything
 batched, no rejection loops (the classical gamma/IG samplers are
 while-loops that XLA cannot fuse across iterations; the inverse-CDF

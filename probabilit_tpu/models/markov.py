@@ -14,13 +14,13 @@ families on the path-node contract (models/processes.py):
   state in force at its left endpoint, so each increment is exactly
   lognormal conditional on the regime path.
 
-TPU shape: with K states the chain step is dense linear algebra, not
+Device shape: with K states the chain step is dense linear algebra, not
 gather — the carried state is one-hot encoded ``(n, K)`` and the next
 state is the inverse-CDF count ``sum_j 1{u > (onehot @ cumP)_j}``: one
-``(n, K) @ (K, K)`` MXU matmul plus elementwise compares per step, no
-data-dependent indexing (TPU gathers at 1e7+ lanes cost 2-4x a sort,
-CLAUDE.md).  All per-step uniforms/normals are pre-sampled outside the
-``lax.scan`` as usual.  Randomness follows the path-node contract:
+``(n, K) @ (K, K)`` matmul plus elementwise compares per step, no
+data-dependent indexing (gathers at 1e7+ lanes cost 2-4x a sort on the
+earlier accelerator; not re-measured on the H100).  All per-step
+uniforms/normals are pre-sampled outside the ``lax.scan`` as usual.  Randomness follows the path-node contract:
 column-seeded PRNG key under ``method=None``, per-driver quantile slab
 under QMC/antithetic methods (chain uniforms take their dimensions
 directly — a discrete recursion has no Brownian-bridge analogue; the
@@ -70,7 +70,7 @@ def _chain_scan(u, cum, state0, dtype):
 
     One-hot carry: ``next = sum_j 1{u > (onehot @ cumP)_j}`` is the
     inverse transform of the current state's transition row, built from
-    an MXU matmul and compares — no gather.
+    a matmul and compares — no gather.
     """
     n, steps = u.shape
     K = cum.shape[0]

@@ -11,7 +11,7 @@ families).  Path functionals (terminal value, running max/min, time
 average, a time slice) project back to the scalar world where the rest
 of the modeling language operates.
 
-TPU shape: increments are one ``(n, steps)`` normal draw and the path
+Device shape: increments are one ``(n, steps)`` normal draw and the path
 is one associative-scan ``cumsum`` along the time axis; functionals are
 axis reductions.  Everything fuses into the compiled sampling program,
 streams (choose ``block_size`` so ``block * steps * 4`` bytes fits
@@ -346,8 +346,8 @@ class OUPath(PathDistribution):
     ``X_k = a X_{k-1} + b + c Z_k`` with ``a = exp(-theta dt)``,
     ``b = mu (1 - a)``, ``c = sigma sqrt((1 - a^2) / (2 theta))``; the
     whole path is one ``lax.associative_scan`` over affine maps
-    ``(A, B) -> x  |->  A x + B`` along the time axis (log-depth on
-    TPU, numerically stable: only products of ``a < 1`` appear).  Every
+    ``(A, B) -> x  |->  A x + B`` along the time axis (log-depth,
+    numerically stable: only products of ``a < 1`` appear).  Every
     grid slice is exactly
     ``N(mu + (x0 - mu) a^k, sigma^2 (1 - a^(2k)) / (2 theta))``.
     """
@@ -708,8 +708,8 @@ def _recolor_assets(z, chol):
     """(n, steps, d) iid drivers -> correlated drivers along the asset axis.
 
     An unrolled lower-triangular mul-add chain rather than a
-    ``(d, d)`` matmul: d is tiny, so a matmul wastes the MXU (lane
-    padding to 128) and fuses worse than elementwise work.  Note the
+    ``(d, d)`` matmul: d is tiny, so a matmul pads to the matrix
+    unit's tile and fuses worse than elementwise work.  Note the
     last-ULP caveat: the CPU backend contracts this chain's mul-adds
     shape-dependently inside the streaming fori_loop body, so joint
     nodes' streamed runs match single-shot runs to ~1 ULP rather than
@@ -826,7 +826,7 @@ class CorrelatedGBMPaths(JointAssetPaths):
     The d assets' log-increments share a constant instantaneous
     correlation matrix: one (n, steps, d) standard-normal draw is
     recolored by the Cholesky factor of ``corr`` along the asset axis
-    (one small MXU matmul), then each asset runs the exact GBM cumsum.
+    (one small matmul), then each asset runs the exact GBM cumsum.
     Log-terminal correlations therefore equal ``corr`` EXACTLY in
     distribution at every horizon — no discretisation error.
 
@@ -976,7 +976,7 @@ class CorrelatedMertonPaths(JointAssetPaths):
 
     * **Correlated diffusion** — one ``(n, steps, d)`` standard-normal
       draw recolored by the Cholesky factor of ``corr`` along the asset
-      axis (one small MXU matmul), scaled per asset: the instantaneous
+      axis (one small matmul), scaled per asset: the instantaneous
       Brownian correlation is ``corr`` exactly at every horizon.
     * **Idiosyncratic jumps** — per asset, ``K ~ Poisson(rate_i dt)``
       and the summed normal jumps exactly ``N(K jm_i, K js_i^2)`` given

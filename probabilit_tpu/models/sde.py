@@ -15,10 +15,10 @@ into the compiled program.  Two schemes:
   strong order 1.  The state derivative ``b' = db/dx`` is obtained by
   FORWARD-MODE AUTODIFF of the user's diffusion callable (one
   ``jax.jvp`` with a ones tangent per step) — no hand-coded derivative,
-  exact to machine precision, and free on the VPU since it fuses into
+  exact to machine precision, and nearly free since it fuses into
   the step's elementwise block.
 
-TPU shape: all ``steps`` standard-normal drivers are pre-sampled OUTSIDE
+Device shape: all ``steps`` standard-normal drivers are pre-sampled OUTSIDE
 the time recursion as one ``(n, steps)`` matrix (XLA loop iterations
 cannot fuse across trips, so nothing expensive may live inside the
 loop); the scheme itself is a ``lax.scan`` whose body is a handful of

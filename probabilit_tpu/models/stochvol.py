@@ -10,15 +10,15 @@ zero:
     V_{k+1} | V_k  =  c * ncx2(df, V_k * e / c),      e = exp(-kappa dt),
     c = sigma^2 (1 - e) / (4 kappa),   df = 4 kappa theta / sigma^2.
 
-TPU shape: the noncentral chi-square is decomposed as
+Device shape: the noncentral chi-square is decomposed as
 ``(Z + sqrt(lambda))^2 + Y`` with ``Z ~ N(0,1)`` and ``Y ~ chi2(df-1)``
 (valid for ``df > 1``; weaker than the Feller condition ``df >= 2``).
 Both driver matrices are pre-sampled OUTSIDE the time recursion — one
 ``(n, steps)`` normal draw plus one inverse-CDF chi-square transform —
 so the unavoidable sequential part is a ``lax.scan`` whose body is four
 elementwise ops on an ``(n,)`` carry.  Nothing in the loop draws
-randomness or inverts CDFs; XLA streams the pre-sampled columns through
-VMEM at memory speed.
+randomness or inverts CDFs; XLA streams the pre-sampled columns at
+memory speed.
 
 The Heston asset path rides the exact variance path with Andersen's
 broken scheme (Andersen 2008, "Simple and efficient simulation of the

@@ -9,8 +9,8 @@ the midpoint conditional on it, and so on coarse-to-fine, which is what
 makes RQMC effective on path-dependent payoffs (the effective dimension
 of an Asian/barrier payoff drops from ``steps`` to a handful).
 
-The construction is linear, so on TPU it is ONE precomputed
-``(steps, steps)`` matrix applied as a single MXU matmul:
+The construction is linear, so it is ONE precomputed
+``(steps, steps)`` matrix applied as a single matmul:
 
 * ``bridge_matrix(steps)`` — ``B`` with ``W = z @ B.T`` a standard
   Brownian motion on the unit-spaced grid ``t_k = k + 1`` when ``z`` is
@@ -112,12 +112,12 @@ def normal_increments(u, dtype):
 
     ``u[:, 0]`` (the best QMC dimension) controls the terminal point of
     the underlying Brownian path.  The transform is one inverse normal
-    CDF plus one ``(n, steps) @ (steps, steps)`` MXU matmul; because the
+    CDF plus one ``(n, steps) @ (steps, steps)`` matmul; because the
     increment matrix is orthogonal the output is exactly an iid
     standard-normal matrix in distribution, so PRNG uniforms lose
-    nothing either.  Matmul precision is pinned: the default TPU matmul
-    rounds f32 inputs to bfloat16, which would put ~1e-3 relative error
-    on every increment (CLAUDE.md measured facts).
+    nothing either.  Matmul precision is pinned: the GPU's default runs
+    f32 matmuls in TF32, which would put ~1e-3 relative error on every
+    increment.
     """
     from probabilit_tpu.ops import special as _special
 

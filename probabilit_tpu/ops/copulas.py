@@ -161,8 +161,8 @@ def sample(family, key, shape, theta, dtype):
         # V ~ Gamma(1/theta); psi(t) = (1+t)^(-1/theta) via exp/log1p so
         # theta near 0 (weak dependence) stays accurate.  Half-integer
         # shapes (theta = 2/k) take the exact loop-free chi-square
-        # decomposition — jax.random.gamma's rejection while_loop runs
-        # HBM-bound at large n (measured 1.34 s at 1e8 on v5e).
+        # decomposition — jax.random.gamma's rejection while_loop
+        # round-trips its carries through device memory on every trip.
         alpha = 1.0 / theta
         if (2.0 * alpha).is_integer() and 1.0 <= 2.0 * alpha <= 128.0:
             from probabilit_tpu.ops.special import chi2_draws

@@ -1,14 +1,15 @@
 """Correlation induction on sample matrices — XLA-native correlators.
 
-TPU-first re-design of the reference correlators (``correlation.py:161-425``):
+Accelerator-first re-design of the reference correlators (``correlation.py:161-425``):
 
 * ``ImanConover`` — rank-based, marginal-preserving correlation induction
   (Iman & Conover 1982).  The reference pipeline is rankdata -> norm.ppf ->
   Cholesky -> per-column triangular solve -> K Python-loop sorts.  Here the
   whole transform is one traced program of exactly FOUR batched sorts and
-  one MXU matmul and nothing else — permutation inversion/application is
-  expressed as integer-key variadic sorts because TPU scatter/gather costs
-  2-4x a sort at 1e7 elements (see ``_apply_rows`` and ops/sort.py).
+  one matmul and nothing else — permutation inversion/application is
+  expressed as integer-key variadic sorts because scatter/gather cost
+  2-4x a sort at 1e7 elements on the earlier accelerator (not re-measured on the H100;
+  see ``_apply_rows`` and ops/sort.py).
 * ``Cholesky`` — exact Pearson induction by whiten-then-color; the two
   K x K triangular factors are combined into one (N,K)@(K,K) matmul.
 * ``decorrelate`` — whitening helper.
@@ -82,8 +83,9 @@ def rankdata(X, axis=0, method="average"):
     ``method="average"`` assigns tied values the mean of their ordinal
     ranks, matching the reference's scipy ``rankdata`` semantics
     (``correlation.py:394``); ``method="ordinal"`` breaks ties by position.
-    Both are expressed as sorts (plus two scans for ties) because TPU
-    scatter costs 2-4x a sort at 1e7 elements.
+    Both are expressed as sorts (plus two scans for ties) because
+    scatter cost 2-4x a sort at 1e7 elements on the earlier accelerator
+    (not re-measured on the H100).
     """
     from probabilit_tpu.ops.sort import (
         apply_inverse_permutation_rows,
@@ -220,8 +222,8 @@ class Cholesky(Correlator):
     """
 
     def _apply(self, X):
-        # TPU's DEFAULT matmul precision rounds f32 inputs to bfloat16 on
-        # the MXU (~1e-3 relative): enough to visibly bias the induced
+        # The GPU's DEFAULT runs f32 matmuls in TF32 (~1e-3 relative):
+        # enough to visibly bias the induced
         # correlation.  Full-f32 passes on these shapes cost well under a
         # millisecond, so pin the whole transform to float32 precision.
         with jax.default_matmul_precision("float32"):
@@ -235,7 +237,7 @@ class Cholesky(Correlator):
             P_emp = jnp.linalg.cholesky(cov)
 
             # transform = inv(P_emp).T @ P.T computed by triangular solve
-            # on the small K x K system; the big (N,K) matrix sees one MXU
+            # on the small K x K system; the big (N,K) matrix sees one
             # matmul.
             target_P = jnp.asarray(self.P, X.dtype)
             transform = jax.scipy.linalg.solve_triangular(
@@ -328,10 +330,10 @@ class ImanConover(Correlator):
         One ``lax.map`` over score rows: the row body (a ~40-term
         unrolled continued fraction for StudentTCopula) is emitted ONCE
         and iterated, not cloned per row — K inlined clones multiplied
-        the t-copula program's remote compile time several-fold, and
+        the t-copula program's compile time several-fold, and
         row-at-a-time evaluation also bounds live loop state to one
-        row's worth (the all-at-once (K, N) t CDF ran a v5e out of HBM
-        at K=10, N=1e8).
+        row's worth (the all-at-once (K, N) t CDF ran a 16 GB device out
+        of memory at K=10, N=1e8).
         """
         y = jnp.asarray(y)
         mix = self._mix_state(y.shape[-1], y.dtype, w_key)
@@ -398,14 +400,14 @@ class ImanConover(Correlator):
     def _apply_rows(self, XT, w_key=None):
         """Iman-Conover on a (K, N) matrix — exactly four sorts, no gathers.
 
-        TPU scatter/gather over 1e7-element permutations costs 2-4x a sort
-        (measured), so every permutation application is expressed as a
-        variadic sort (see ops/sort.py).  Per statistical column:
+        Scatter/gather over 1e7-element permutations cost 2-4x a sort on
+        the earlier accelerator (not re-measured on the H100), so every permutation
+        application is expressed as a variadic sort (see ops/sort.py).  Per statistical column:
 
         1. ``sort(X, iota)``            -> X_sorted, order
         2. ``sort(order, s_sorted)``    -> van der Waerden scores in
            original row order (this IS the rank->score scatter)
-        3. one (K,K)@(K,N) MXU matmul recolors the scores (empirical
+        3. one (K,K)@(K,N) matmul recolors the scores (empirical
            decorrelation and target coloring factors pre-combined)
         4. ``sort(corr, iota)`` -> order2; ``sort(order2, X_sorted)``
            places the k-th largest original value at the row of the k-th
@@ -488,9 +490,9 @@ class ImanConover(Correlator):
         X_sorted, order = rowsort_with_order(XT, chunk_elems)
         scores, s_mean, s_var = self._scores_rows(X_sorted, order, chunk_elems)
 
-        # Empirical correlation of the scores from one MXU Gram matrix.
-        # float32 matmul precision: TPU's DEFAULT would round the f32
-        # score inputs to bfloat16 on the MXU (~1e-3 corr bias).
+        # Empirical correlation of the scores from one Gram matrix.
+        # float32 matmul precision: the GPU's DEFAULT TF32 would round
+        # the f32 score inputs to 10-bit mantissas (~1e-3 corr bias).
         acc_type = jnp.float64 if dtype == jnp.float64 else jnp.float32
         with jax.default_matmul_precision("float32"):
             gram = (
@@ -534,8 +536,8 @@ class ImanConover(Correlator):
         1982 paper's variance-reduction step) applied to random normal
         scores instead of van der Waerden rank scores.
         """
-        # float32 matmul precision throughout: TPU's DEFAULT rounds f32
-        # MXU inputs to bfloat16 (~1e-3 relative), which measurably biases
+        # float32 matmul precision throughout: the GPU's DEFAULT TF32
+        # rounds f32 inputs (~1e-3 relative), which measurably biases
         # the empirical-decorrelation factor and therefore the induced
         # correlation.  The f32 passes cost <1 ms even at (16, 1e8).
         with jax.default_matmul_precision("float32"):
@@ -640,8 +642,7 @@ class StudentTCopula(ImanConover):
     16 GB chip near ``n * K ~ 1e9`` (measured: K=10 at n=1e8 does not
     fit).  Big t-copula runs go through the streaming entry points
     (``estimate``/``sample_streaming`` with ``correlator=...``) — any
-    size, O(block) memory, measured 1e8 draws of a 50-node/K=10 DAG in
-    ~1.5 s on v5e.
+    size, O(block) memory.
     """
 
     gaussian_scores = False
@@ -715,8 +716,8 @@ def decorrelate(X, remove_variance=True):
     mean = jnp.mean(X, axis=0)
     var = jnp.var(X, axis=0)
     Xc = X - mean
-    # Statistics-bearing matmul/cholesky/solve: pin f32 precision or the
-    # MXU rounds inputs to bfloat16 (~1e-3 residual correlation after
+    # Statistics-bearing matmul/cholesky/solve: pin f32 precision or
+    # TF32 rounds the inputs (~1e-3 residual correlation after
     # whitening) — same pin as every other correlator path in this file.
     with jax.default_matmul_precision("float32"):
         cov = (Xc.T @ Xc) / (N - 1)

@@ -1,13 +1,10 @@
 """Shared integer avalanche mixers (murmur3 finalizer family).
 
-One home for the hand-rolled uint32 mixers that previously lived as
-near-duplicates in ``ops/qmc.py`` (LHS jitter) and
-``engine/pallas_exec.py`` (hardware-PRNG block seeding): a future
-quality fix propagates to both.  ``ops/correlation.py`` keeps its own
-shortened splitmix-style pad-filler mixer ON PURPOSE — padded
-column-sharded results are bitwise-pinned to it, so it must not follow
-changes here.  All ops are plain jnp on uint32, safe both in traced XLA
-programs and inside Mosaic kernel bodies (no casts, no i1 arithmetic).
+The hand-rolled uint32 mixers behind ``ops/qmc.py``'s LHS jitter.
+``ops/correlation.py`` keeps its own shortened splitmix-style pad-filler
+mixer ON PURPOSE — padded column-sharded results are bitwise-pinned to
+it, so it must not follow changes here.  All ops are plain jnp on
+uint32.
 
 ``fmix32`` is exactly the murmur3 32-bit finalizer (full avalanche: every
 input bit flips each output bit with probability ~1/2).

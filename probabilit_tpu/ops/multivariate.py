@@ -61,8 +61,8 @@ def multivariate_normal(q, shape, mean=None, cov=None, **_):
     dtype = config.float_dtype()
     mean = jnp.zeros((d,), dtype) if mean is None else jnp.asarray(mean, dtype)
     cov = jnp.eye(d, dtype=dtype) if cov is None else jnp.asarray(cov, dtype)
-    # float32 matmul precision: TPU's DEFAULT rounds f32 MXU inputs to
-    # bfloat16 (~1e-3 relative error on every sample's recoloring).
+    # float32 matmul precision: the GPU's DEFAULT TF32 rounds f32 inputs
+    # (~1e-3 relative error on every sample's recoloring).
     with jax.default_matmul_precision("float32"):
         L = jnp.linalg.cholesky(cov)
         z = jax.random.normal(_key_from_q(q), (n, d), dtype)

@@ -2,7 +2,7 @@
 
 The reference solves a weighted-Frobenius SDP with CVXPY/SCS
 (``correlation.py:59-150``, eq. (3) of Qi & Sun's H-weighted NCM paper).
-Neither CVXPY nor an external conic solver belongs in a TPU-native stack;
+Neither CVXPY nor an external conic solver belongs in a compiled stack;
 the matrices involved are K x K for K = number of correlated variables
 (small), so we solve the same two problems directly:
 

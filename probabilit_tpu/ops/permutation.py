@@ -297,7 +297,7 @@ class PermutationCorrelator(Correlator):
 
         mean = jnp.mean(Xw, axis=0)
         centered = Xw - mean
-        # float32 precision: TPU's DEFAULT bf16 MXU rounding would bias
+        # float32 precision: the GPU's DEFAULT TF32 rounding would bias
         # the correlation estimate the hill-climb optimises against.
         with jax.default_matmul_precision("float32"):
             numerator = (centered.T @ centered) / num_obs

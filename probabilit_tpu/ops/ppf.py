@@ -1,6 +1,6 @@
 """Inverse-CDF (ppf) sampling kernels per distribution family.
 
-This module is the TPU-native replacement for the reference's scipy backend:
+This module is the device-native replacement for the reference's scipy backend:
 ``Distribution("name", ...)`` resolves ``getattr(scipy.stats, name).ppf``
 (``modeling.py:795-812``).  Here each family is an XLA-traceable function
 ``kernel(q, *shape_params, loc, scale)`` whose parameter names and order
@@ -142,8 +142,8 @@ def norm(q, loc=0.0, scale=1.0):
 # --- Normal-score shortcuts -----------------------------------------
 # Families whose ppf is an elementwise function of ndtri(q) admit a
 # closed form in a standard-normal score y: ppf(Phi(y)) = g(y).  The
-# correlated sampling paths (engine/compile.py, engine/pallas_exec.py)
-# produce exactly such scores, so evaluating g(y) directly skips the
+# correlated sampling path (engine/compile.py) produces exactly such
+# scores, so evaluating g(y) directly skips the
 # Phi/ndtri polynomial roundtrip — ~40 fewer ops per sample AND exact
 # where the roundtrip carries up to ~1e-3 absolute error at |y| > 4
 # (ndtr's 1.5e-7 CDF error divided by a vanishing pdf).
@@ -173,8 +173,7 @@ def score_emit(var, y, ctx):
     """Score shortcut for a ``Distribution`` node, or None.
 
     Resolves Node-valued parameters through ``ctx`` exactly like
-    ``Distribution._emit`` before dispatching to the score kernel, so
-    both executors share one implementation.
+    ``Distribution._emit`` before dispatching to the score kernel.
     """
     from probabilit_tpu.models.distributions import Distribution
     from probabilit_tpu.models.graph import Node
@@ -656,9 +655,9 @@ def johnsonsb(q, a, b, loc=0.0, scale=1.0):
 @register("johnsonsu")
 def johnsonsu(q, a, b, loc=0.0, scale=1.0):
     z = (special.ndtri_fast(_f(q)) - _f(a)) / _f(b)
-    # sinh via exp: Mosaic has no sinh primitive, and the explicit form
-    # keeps the kernel megakernel-eligible (worst case ~1e-3 relative
-    # at |z| ~ 1e-4 where |x| itself is ~1e-4 — inside the f32 contract).
+    # sinh via exp (worst case ~1e-3 relative at |z| ~ 1e-4 where |x|
+    # itself is ~1e-4 — inside the f32 contract).  Chosen for a kernel
+    # compiler without sinh on the earlier accelerator; not re-measured on the H100.
     ez = jnp.exp(z)
     return _f(loc) + _f(scale) * 0.5 * (ez - 1.0 / ez)
 
@@ -1145,8 +1144,7 @@ def kstwobign(q, loc=0.0, scale=1.0):
 def rel_breitwigner(q, rho, loc=0.0, scale=1.0):
     # pdf = C / (((x - rho)(x + rho)/rho)^2 + 1) on x >= 0; the CDF is
     # the imaginary part of a complex arctan (partial fractions over
-    # the roots x^2 = rho^2 +- i rho).  Newton on that pair; the
-    # complex math stays in the XLA path (not megakernel-eligible).
+    # the roots x^2 = rho^2 +- i rho).  Newton on that pair.
     q, rho = _f(q), _f(rho)
     inv_r2 = 1.0 / (rho * rho)
     s = jnp.sqrt(1.0 + inv_r2)
@@ -1197,7 +1195,7 @@ def _table_ppf(q, cdf_table, loc=0):
     """Static fast path: searchsorted into a host-precomputed f64 CDF table.
 
     One gather per sample; the table is baked into the program as a
-    constant living in HBM/VMEM.
+    constant living in device memory.
     """
     table = jnp.asarray(cdf_table, config.float_dtype())
     k = jnp.searchsorted(table, jnp.asarray(q, config.float_dtype()), side="left")
@@ -1264,7 +1262,7 @@ def _generic_discrete_table(name, args, kwargs):
 
     if lookup(name) is not None:
         # Closed-form/native kernels (bernoulli, geom, randint, ...) must
-        # keep their exact emit in BOTH executors; the generic table is
+        # keep their exact emit; the generic table is
         # strictly a fallback for families that would otherwise pay a
         # host callback.
         return None
@@ -1295,9 +1293,8 @@ def _generic_discrete_table(name, args, kwargs):
 def static_cdf_table(distr, *args, **kwargs):
     """(f64 CDF table, offset) for a static-parameter discrete family, or None.
 
-    The same tables ``_table_ppf`` bakes into the XLA program, exposed so
-    the Pallas executor can evaluate identical semantics as a select
-    chain (``engine/pallas_exec.py``).  Families without a hand-written
+    The same tables ``_table_ppf`` bakes into the XLA program.  Families
+    without a hand-written
     builder fall back to the generic scipy-support scan.  Returns None
     for non-discrete families, non-static (traced/Node) parameters, or
     non-scalar shapes.

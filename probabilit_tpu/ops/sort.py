@@ -1,9 +1,10 @@
-"""Sort primitives tuned for TPU: batched row-wise sorts, bounded memory.
+"""Sort primitives: batched row-wise sorts, bounded memory.
 
-Measured on v5e (1e7 elements, f32): one XLA sort has a large fixed cost
-from the comparison-network depth (~220 ms) plus a small per-row marginal
-(~11 ms), while per-element gather/scatter over the same data costs
-700-1200 ms.  Two consequences drive the design here:
+On the accelerator this library was first built for, one XLA sort of
+1e7 f32 elements had a large fixed cost and a small per-row marginal,
+while per-element gather/scatter over the same data cost several times a
+sort.  Two consequences drive the design here (decided there; not
+re-measured on the H100):
 
 1. batch sorts across rows (statistical *columns* live on the leading
    axis, sorting along the lane-aligned last axis), chunked only to bound
@@ -30,10 +31,9 @@ __all__ = [
 
 # Elements allowed live inside one variadic sort call (~4 buffers of this
 # many f32/i32 elements live inside a 2-operand sort): 1.6e8 -> ~2.5 GB
-# sort workspace.  Empirically the sweet spot on v5e for 1e7-row sorts:
-# 16-row chunks ran the 4-sort Iman-Conover at 8.8 s vs 10.4 s with
-# 25-row chunks (per-sort cost grows superlinearly in width beyond ~16
-# rows) and ~21 s with 6-row chunks.
+# sort workspace.  16-row chunks of 1e7-row sorts were the fastest width
+# on the earlier accelerator (per-sort cost grew superlinearly beyond
+# ~16 rows); the constant is untuned on the H100.
 _DEFAULT_CHUNK_ELEMS = 160_000_000
 
 
@@ -58,8 +58,8 @@ def rowsort_with_order(XT, chunk_elems=_DEFAULT_CHUNK_ELEMS, stable=False):
     sorted_parts, order_parts = [], []
     for lo, hi in _row_chunks(K, c):
         block = XT[lo:hi]
-        # Unstable by default: measured 1.5x cheaper on v5e (523 vs 787 ms
-        # at (16,1e7)) and safe for callers that resolve ties by value
+        # Unstable by default: cheaper than a stable sort, and safe for
+        # callers that resolve ties by value
         # (average-rank scores).  Callers that promise position-determined
         # tie order (ordinal ranks) pass stable=True.
         s, o = jax.lax.sort(

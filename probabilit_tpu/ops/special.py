@@ -1,8 +1,8 @@
 """Special functions for inverse-CDF sampling kernels.
 
 The reference delegates all of this to scipy.stats' compiled ppf routines
-(``modeling.py:805-807``).  On TPU we need XLA-native inverses so that a
-billion-sample ppf evaluation stays on the VPU: safeguarded Newton iterations
+(``modeling.py:805-807``).  Here the inverses are XLA-native so that a
+billion-sample ppf evaluation stays on the device: safeguarded Newton iterations
 on ``jax.scipy.special.gammainc`` / ``betainc`` with analytically computed
 derivatives, fully vectorised and fused into the surrounding program.
 
@@ -45,9 +45,9 @@ def erfinv_f32(x):
     """Fast single-precision inverse error function (Giles 2012 scheme).
 
     Two short polynomial branches in w = -log(1-x^2); ~20 fma + one log +
-    one select, no divisions — ~4x cheaper than the XLA ndtri rational on
-    the TPU VPU.  Max relative error ~1e-6, well inside the framework's
-    float32 sampling accuracy contract.
+    one select, no divisions (chosen over the XLA ndtri rational on the
+    earlier accelerator; not re-measured on the H100).  Max relative error ~1e-6, well
+    inside the framework's float32 sampling accuracy contract.
 
     The tail branch is fitted up to w ~ 16.6 (|x| up to ~1 - 2^-24, the
     densest float32 value the engine's clamped uniforms can produce);
@@ -169,7 +169,7 @@ def ndtri_fast_wide(q):
 
 
 def ndtr_fast(x):
-    """Standard-normal CDF; polynomial f32 path (Mosaic has no ``erf``).
+    """Standard-normal CDF; polynomial f32 path (A&S 7.1.26 in place of ``erf``).
 
     Abramowitz & Stegun 7.1.26, restructured so the LOWER tail is the
     directly-computed quantity ``0.5 * poly * exp(-z^2)`` — never
@@ -256,21 +256,19 @@ def t_cdf(x, df):
     # accuracy to jax.scipy.betainc at these (a, 1/2) shapes (measured
     # equal to 1e-7) but a fraction of its loop-carry footprint — the
     # t-copula path evaluates this over 1e8-element score rows, where
-    # jax.scipy's carries ran a v5e out of HBM.  float64 keeps
+    # jax.scipy's loop carries ran a 16 GB device out of memory.  float64 keeps
     # jax.scipy's implementation (1e-14 vs the kernel's f32-tuned trips).
     if dtype == jnp.float32:
-        # cf_iters stays 40 even though the CF converges by ~12 pairs at
+        # The CF keeps 40 pairs even though it converges by ~12 pairs at
         # b = 1/2 (iteration count does not move the measured accuracy —
         # the lgamma prefactor dominates): a 16-pair body made t_cdf
-        # ALONE faster (168 -> 91 ms at 1e8 on v5e) but the streamed
-        # t-copula program 3x SLOWER (1.9 -> 5.5 s, reproduced twice) —
-        # the shorter body flips XLA into a worse schedule around the
-        # per-row lax.map.  Change only with an end-to-end measurement.
-        tail = 0.5 * betainc_kernel(
-            0.5 * df, jnp.asarray(0.5, dtype), z, fused=not _IN_KERNEL
-        )
+        # alone faster but the streamed t-copula program slower, because
+        # the shorter body flipped XLA into a worse schedule around the
+        # per-row lax.map (decided on the earlier accelerator; not re-measured on the H100).
+        # Change only with an end-to-end measurement.
+        tail = 0.5 * betainc_kernel(0.5 * df, jnp.asarray(0.5, dtype), z)
     else:
-        tail = 0.5 * _betainc_impl()(0.5 * df, jnp.asarray(0.5, dtype), z)
+        tail = 0.5 * betainc(0.5 * df, jnp.asarray(0.5, dtype), z)
     return jnp.where(x >= 0, 1.0 - tail, tail)
 
 
@@ -282,8 +280,9 @@ def chi2_draws(key, df, n, dtype):
     elementwise pass over k uniforms (+ one normal when df is odd).
     The alternative, the safeguarded-Newton ``gammaincinv`` ppf, is
     exact for any df but its while_loop round-trips every carry through
-    HBM per Newton step: measured 8.6 s at 1e8 draws on v5e vs ~0.1 s
-    for the decomposition.  Fractional df keeps the exact ppf route.
+    device memory per Newton step (the decomposition was about 80x
+    faster at 1e8 draws on the earlier accelerator; not re-measured on the H100).  Fractional df
+    keeps the exact ppf route.
     """
     from probabilit_tpu.ops.qmc import clamp_open_unit
 
@@ -306,10 +305,11 @@ def chi2_draws(key, df, n, dtype):
 def expm1_safe(x):
     """exp(x) - 1, accurate near zero, without the ``expm1`` primitive.
 
-    Mosaic does not lower ``expm1``, so the float32 path uses a 7-term
-    Taylor branch below |x| < 0.25 (relative error ~2e-9, below float32
-    epsilon).  float64 arrays never run inside Pallas kernels and keep
-    the exact ``jnp.expm1``.
+    The float32 path uses a 7-term Taylor branch below |x| < 0.25
+    (relative error ~2e-9, below float32 epsilon); it was written for a
+    kernel compiler without ``expm1`` and is kept until an H100
+    measurement decides between it and ``jnp.expm1``.  float64 uses the
+    exact ``jnp.expm1``.
     """
     x = jnp.asarray(x)
     if x.dtype == jnp.float64:
@@ -332,48 +332,19 @@ _NEWTON_ITERS = 26
 _TINY = 1e-30
 
 # ---------------------------------------------------------------------
-# Mosaic-safe incomplete functions
+# Loop-free incomplete functions
 #
-# ``jax.scipy.special.gammainc/betainc`` lower through XLA custom
-# expansions that Pallas/Mosaic cannot compile (captured coefficient
-# tables).  These implementations use only elementwise arithmetic,
-# scalar Python constants, and fixed-trip ``fori_loop``s, so they lower
-# inside TPU kernels.  Accuracy: float32 relative ~1e-6 for shape
-# parameters in (0, ~30] (series/CF trip counts sized for that range —
-# the megakernel whitelist enforces it; the XLA path keeps using the
-# native ops with no parameter restriction).
+# Elementwise arithmetic and scalar Python constants only.  Accuracy:
+# float32 relative ~1e-6 for shape parameters in (0, ~30] (series/CF
+# trip counts sized for that range).  The t CDF and the chi-square
+# mixing draws use them; everything else keeps jax.scipy's versions.
 # ---------------------------------------------------------------------
-
-_IN_KERNEL = False
-
-
-class _kernel_safe_special:
-    """Context manager: route gammainc/betainc to Mosaic-safe versions.
-
-    Used by the Pallas executor around graph emission; the flag is read
-    at trace time, so the selected implementation is baked into the
-    kernel.
-    """
-
-    def __enter__(self):
-        global _IN_KERNEL
-        self._prev = _IN_KERNEL
-        _IN_KERNEL = True
-        return self
-
-    def __exit__(self, *exc):
-        global _IN_KERNEL
-        _IN_KERNEL = self._prev
-        return False
-
-
-kernel_safe_special = _kernel_safe_special
 
 
 def lgamma_kernel(x):
     """Log-gamma for x > 0 via the Lanczos approximation (g=7, n=9).
 
-    Scalar coefficients only — lowers in Mosaic.  float32 relative error
+    Scalar coefficients only.  float32 relative error
     < 1e-6 on (0, 1e4).
     """
     x = jnp.asarray(x)
@@ -436,11 +407,11 @@ def _gammainc_cf(a, x, log_prefactor, iters=48):
 
 
 def gammainc_kernel(a, x):
-    """Regularized lower incomplete gamma P(a, x), Mosaic-safe.
+    """Regularized lower incomplete gamma P(a, x), elementwise.
 
     Series for x < a+1, Lentz continued fraction otherwise (both
-    branches evaluated, selected elementwise — data-oblivious for the
-    VPU).  Sized for a in (0, ~30].
+    branches evaluated, selected elementwise — no data-dependent control
+    flow).  Sized for a in (0, ~30].
     """
     dtype = jnp.result_type(a, x, jnp.float32)
     a = jnp.asarray(a, dtype)
@@ -456,50 +427,12 @@ def gammainc_kernel(a, x):
 
 
 def _betacf(a, b, x, iters=40):
-    """Continued fraction for betainc (Lentz, paired even/odd steps)."""
-    tiny = jnp.asarray(1e-30, x.dtype)
-    qab = a + b
-    qap = a + 1.0
-    qam = a - 1.0
-    c = jnp.ones_like(x)
-    d = 1.0 - qab * x / qap
-    d = 1.0 / jnp.where(jnp.abs(d) < tiny, tiny, d)
-    h = d
+    """Continued fraction for betainc (Lentz, paired even/odd steps).
 
-    def body(m1, carry):
-        c, d, h = carry
-        m = m1 + 1.0
-        two_m = 2.0 * m
-        # Even step.
-        aa = m * (b - m) * x / ((qam + two_m) * (a + two_m))
-        d = 1.0 + aa * d
-        d = 1.0 / jnp.where(jnp.abs(d) < tiny, tiny, d)
-        c = 1.0 + aa / c
-        c = jnp.where(jnp.abs(c) < tiny, tiny, c)
-        h = h * d * c
-        # Odd step.
-        aa = -(a + m) * (qab + m) * x / ((a + two_m) * (qap + two_m))
-        d = 1.0 + aa * d
-        d = 1.0 / jnp.where(jnp.abs(d) < tiny, tiny, d)
-        c = 1.0 + aa / c
-        c = jnp.where(jnp.abs(c) < tiny, tiny, c)
-        h = h * d * c
-        return c, d, h
-
-    _, _, h = jax.lax.fori_loop(0, iters, body, (c, d, h))
-    return h
-
-
-def _betacf_fused(a, b, x, iters=40):
-    """``_betacf`` with the Lentz recurrence unrolled into one fusion.
-
-    A ``fori_loop`` body cannot fuse across iterations: every trip
-    round-trips its (c, d, h) carries through HBM, so at 1e8 elements
-    the 40-trip loop moves ~200 GB and runs bandwidth-bound (measured
-    370 ms for a t CDF).  Unrolled, XLA emits ONE elementwise kernel —
-    read x once, write h once — and the same math runs compute-bound.
-    Host-side (traced XLA) use only; Mosaic keeps the rolled loop
-    (long unrolled Mosaic bodies degrade ~36x, BASELINE.md).
+    Unrolled in Python: a ``fori_loop`` body cannot fuse across
+    iterations, so every trip would round-trip its (c, d, h) carries
+    through device memory.  Unrolled, XLA emits one elementwise kernel
+    that reads x once and writes h once.
     """
     tiny = jnp.asarray(1e-30, x.dtype)
     qab = a + b
@@ -527,16 +460,12 @@ def _betacf_fused(a, b, x, iters=40):
     return h
 
 
-def betainc_kernel(a, b, x, fused=False, cf_iters=40):
-    """Regularized incomplete beta I_x(a, b), Mosaic-safe.
+def betainc_kernel(a, b, x):
+    """Regularized incomplete beta I_x(a, b), elementwise.
 
     Standard symmetry split at x = (a+1)/(a+b+2); both continued
     fractions evaluated and selected elementwise.  Sized for a, b in
-    (0, ~30].  ``fused=True`` unrolls the Lentz recurrence into one
-    elementwise fusion (host-side XLA only — see ``_betacf_fused``);
-    ``cf_iters`` bounds the recurrence depth for callers whose (a, b)
-    range converges early (the t CDF's b = 1/2 converges by ~12 pairs
-    at every df <= 128, measured against scipy on a wide x sweep).
+    (0, ~30].
     """
     dtype = jnp.result_type(a, b, x, jnp.float32)
     a = jnp.asarray(a, dtype)
@@ -552,43 +481,12 @@ def betainc_kernel(a, b, x, fused=False, cf_iters=40):
         + b * jnp.log1p(-xc)
     )
     bt = jnp.exp(log_bt)
-    cf_impl = _betacf_fused if fused else _betacf
-
-    def cf(pa, pb, px):
-        # cf_iters applies to BOTH paths (the rolled _betacf takes the
-        # same iters argument); ignoring it on fused=False would make
-        # Mosaic callers' tuning a silent no-op.
-        return cf_impl(pa, pb, px, iters=cf_iters)
-    direct = bt * cf(a, b, xc) / a
-    flipped = 1.0 - bt * cf(b, a, 1.0 - xc) / b
+    direct = bt * _betacf(a, b, xc) / a
+    flipped = 1.0 - bt * _betacf(b, a, 1.0 - xc) / b
     p = jnp.where(xc < (a + 1.0) / (a + b + 2.0), direct, flipped)
     p = jnp.where(x <= 0.0, 0.0, p)
     p = jnp.where(x >= 1.0, 1.0, p)
     return jnp.clip(p, 0.0, 1.0)
-
-
-def _gammainc_impl():
-    return gammainc_kernel if _IN_KERNEL else gammainc
-
-
-def _betainc_impl():
-    return betainc_kernel if _IN_KERNEL else betainc
-
-
-def _gammaln_impl():
-    return lgamma_kernel if _IN_KERNEL else gammaln
-
-
-def _betaln_impl():
-    if _IN_KERNEL:
-        return lambda a, b: (
-            lgamma_kernel(a) + lgamma_kernel(b) - lgamma_kernel(a + b)
-        )
-    return betaln
-
-
-def _ndtri_impl():
-    return ndtri_fast_wide if _IN_KERNEL else ndtri
 
 
 def _wilson_hilferty_gamma_guess(a, p):
@@ -598,10 +496,10 @@ def _wilson_hilferty_gamma_guess(a, p):
     1/(9a)).  Good to a few percent for a >~ 0.5; Newton cleans it up.
     """
     s = 1.0 / (9.0 * a)
-    z = _ndtri_impl()(p)
+    z = ndtri(p)
     guess = a * (1.0 - s + z * jnp.sqrt(s)) ** 3
     # Small-a fallback: P(a, x) ~ x^a / Gamma(a+1) for small x.
-    small = jnp.exp((jnp.log(jnp.clip(p, _TINY)) + _gammaln_impl()(a + 1.0)) / a)
+    small = jnp.exp((jnp.log(jnp.clip(p, _TINY)) + gammaln(a + 1.0)) / a)
     guess = jnp.where((a < 0.5) | (guess <= 0.0), small, guess)
     return jnp.clip(guess, _TINY)
 
@@ -622,8 +520,7 @@ def gammaincinv(a, p):
     x0 = _wilson_hilferty_gamma_guess(a, p_clipped)
     log_x = jnp.log(x0)
 
-    lgam = _gammaln_impl()(a)
-    _gammainc = _gammainc_impl()
+    lgam = gammaln(a)
 
     # Early-exit Newton: the while_loop stops the WHOLE batch as soon as
     # every lane's log-space step (= relative step) is below tolerance,
@@ -638,12 +535,12 @@ def gammaincinv(a, p):
 
     def cond(carry):
         _, done, i = carry
-        return (i < _NEWTON_ITERS) & jnp.any(done < 0.5)
+        return (i < _NEWTON_ITERS) & jnp.any(~done)
 
     def body(carry):
         log_x, done, i = carry
         x = jnp.exp(log_x)
-        f = _gammainc(a, x) - p_clipped
+        f = gammainc(a, x) - p_clipped
         # d/dx P(a,x) = x^(a-1) e^-x / Gamma(a);  d/dlogx = x * that
         log_pdf_logx = a * log_x - x - lgam
         step = f * jnp.exp(-log_pdf_logx)
@@ -659,19 +556,15 @@ def gammaincinv(a, p):
         # tiny step while still far from the root (Newton's distance
         # estimate breaks under strong curvature); a move-only freeze
         # would trap it there (measured: 2.5e-4 error, beta(.5,.5)).
-        # The mask is ABSORBING (max(done, converged)): without it a
+        # The mask is ABSORBING (done | converged): without it a
         # frozen lane could oscillate back to life and its value would
-        # again depend on when the global loop exits.  It is carried as
-        # 0.0/1.0 in the value dtype, NOT bool: Mosaic cannot carry
-        # vector<i1> through an scf.while, so a bool mask would fail to
-        # compile inside Pallas kernels (gamma/beta-family megakernels).
-        conv = (jnp.abs(step) <= tol) & (jnp.abs(f) <= f_tol)
-        done = jnp.maximum(done, conv.astype(done.dtype))
-        step = jnp.where(done > 0.5, jnp.zeros_like(step), step)
+        # again depend on when the global loop exits.
+        done = done | ((jnp.abs(step) <= tol) & (jnp.abs(f) <= f_tol))
+        step = jnp.where(done, jnp.zeros_like(step), step)
         return log_x - step, done, i + 1
 
     log_x, _, _ = jax.lax.while_loop(
-        cond, body, (log_x, jnp.zeros(log_x.shape, dtype), jnp.int32(0))
+        cond, body, (log_x, jnp.zeros(log_x.shape, bool), jnp.int32(0))
     )
     x = jnp.exp(log_x)
 
@@ -687,7 +580,7 @@ def gammainccinv(a, q):
 
 def _beta_guess(a, b, p):
     """Initial guess for betaincinv, Abramowitz & Stegun 26.5.22."""
-    y = _ndtri_impl()(p)
+    y = ndtri(p)
     two = jnp.asarray(2.0, y.dtype)
     la = 1.0 / (2.0 * a - 1.0)
     lb = 1.0 / (2.0 * b - 1.0)
@@ -697,7 +590,7 @@ def _beta_guess(a, b, p):
     )
     guess = a / (a + b * jnp.exp(2.0 * w))
     # Fallback for small parameters: power-law inversion of the CDF tail.
-    t = jnp.exp((jnp.log(jnp.clip(p, _TINY)) + _betaln_impl()(a, b) + jnp.log(a)) / a)
+    t = jnp.exp((jnp.log(jnp.clip(p, _TINY)) + betaln(a, b) + jnp.log(a)) / a)
     guess = jnp.where((a <= 1.0) | (b <= 1.0) | ~jnp.isfinite(guess), t, guess)
     return jnp.clip(guess, 1e-6, 1.0 - 1e-6)
 
@@ -720,8 +613,7 @@ def betaincinv(a, b, p):
     x = _beta_guess(a, b, p_c)
     lo = jnp.zeros_like(x)
     hi = jnp.ones_like(x)
-    lbeta = _betaln_impl()(a, b)
-    _betainc = _betainc_impl()
+    lbeta = betaln(a, b)
 
     # Early-exit safeguarded Newton (see gammaincinv): stops when every
     # lane's relative movement drops below tolerance.  Bisection-fallback
@@ -732,11 +624,11 @@ def betaincinv(a, b, p):
 
     def cond(carry):
         _, _, _, done, i = carry
-        return (i < _NEWTON_ITERS + 14) & jnp.any(done < 0.5)
+        return (i < _NEWTON_ITERS + 14) & jnp.any(~done)
 
     def body(carry):
         x, lo, hi, done, i = carry
-        f = _betainc(a, b, x) - p_c
+        f = betainc(a, b, x) - p_c
         # Maintain bracket [lo, hi] with f(lo) < 0 < f(hi).
         lo = jnp.where(f < 0.0, x, lo)
         hi = jnp.where(f > 0.0, x, hi)
@@ -755,17 +647,14 @@ def betaincinv(a, b, p):
         # ABSORBING freeze: a frozen lane's own lo/hi update can flip
         # the bracket test next iteration and bounce it back to life,
         # re-tying its value to the global exit time (observed as
-        # streamed-vs-single-shot diffs for beta(0.5, 0.5)).  Carried as
-        # 0.0/1.0 in the value dtype — Mosaic cannot carry vector<i1>
-        # through scf.while (see gammaincinv).
+        # streamed-vs-single-shot diffs for beta(0.5, 0.5)).
         rel = jnp.abs(x_new - x) / jnp.maximum(x, _TINY)
-        conv = (rel <= tol) & (jnp.abs(f) <= f_tol)
-        done = jnp.maximum(done, conv.astype(done.dtype))
-        x_new = jnp.where(done > 0.5, x, x_new)
+        done = done | ((rel <= tol) & (jnp.abs(f) <= f_tol))
+        x_new = jnp.where(done, x, x_new)
         return x_new, lo, hi, done, i + 1
 
     x, _, _, _, _ = jax.lax.while_loop(
-        cond, body, (x, lo, hi, jnp.zeros(x.shape, dtype), jnp.int32(0))
+        cond, body, (x, lo, hi, jnp.zeros(x.shape, bool), jnp.int32(0))
     )
 
     x = jnp.where(p <= 0.0, 0.0, x)

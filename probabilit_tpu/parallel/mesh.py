@@ -1,6 +1,6 @@
 """Sample-axis sharding over a device mesh.
 
-The reference is single-process NumPy (SURVEY §2.3).  The TPU-native scale
+The reference is single-process NumPy (SURVEY §2.3).  The natural scale
 axis for Monte Carlo is the *sample* dimension: every node's sample vector
 is sharded over the mesh's ``samples`` axis, transforms are embarrassingly
 parallel, and only correlator statistics/sorts induce collectives (inserted

@@ -171,16 +171,6 @@ class TestCopulaGraph:
         # E[Z1 Z2] > 0 under positive dependence (0 if independent).
         assert est["mean"] > 0.3
 
-    def test_pallas_gate_graceful(self):
-        from probabilit_tpu import ClaytonCopula, QuantileTransform
-        from probabilit_tpu.engine import compile as _compile
-        from probabilit_tpu.engine import pallas_exec
-
-        u1, u2 = ClaytonCopula(theta=2.0)
-        model = QuantileTransform(u1, "norm") + QuantileTransform(u2, "norm")
-        plan = _compile.get_plan(model)
-        assert pallas_exec.supports(plan, frozenset({model._id})) is False
-
 
 class TestQuantileTransform:
     def test_requires_node(self):

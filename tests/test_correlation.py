@@ -500,20 +500,3 @@ class TestStudentTCopula:
                 model.sample(8192, random_state=0, correlator=StudentTCopula(df=4))
             )
         np.testing.assert_allclose(base, sharded, rtol=1e-3, atol=1e-3)
-
-    def test_pallas_executor_rejects_tcopula(self):
-        from probabilit_tpu.correlation import StudentTCopula
-        from probabilit_tpu.modeling import Distribution
-
-        a = Distribution("norm")
-        b = Distribution("norm")
-        C = np.array([[1, 0.5], [0.5, 1.0]])
-        model = (a + b).correlate(a, b, corr_mat=C.copy())
-        with pytest.raises(ValueError, match="imanconover"):
-            model.sample(
-                1024,
-                random_state=0,
-                executor="pallas",
-                gc_strategy=[],
-                correlator=StudentTCopula(df=4),
-            )

@@ -213,7 +213,15 @@ class TestHeston:
         with use_mesh(make_mesh()):
             sharded = np.asarray(node.sample(4096, random_state=5, method="sobol"))
             prng = np.asarray(node.sample(4096, random_state=5))
-        np.testing.assert_array_equal(base, sharded)
+        # Same Sobol points on every shard, but not always the same bits:
+        # the chi-square drivers' Newton inverse (ops/special.gammaincinv)
+        # is one fused loop body that XLA compiles per shape, and the
+        # CPU backend vectorises and contracts it differently for a
+        # 512-row shard than for 4096 rows.  That moves the last bit of a
+        # few lanes (measured: 1 of 4096 terminals, 9.2e-8 relative; the
+        # same function differs between a 4096-row batch and its last 512
+        # rows with no mesh at all).  Hence rtol 1e-6, not bitwise.
+        np.testing.assert_allclose(sharded, base, rtol=1e-6)
         assert np.isfinite(prng).all()
 
     def test_validation(self):

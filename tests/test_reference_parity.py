@@ -24,7 +24,7 @@ try:
 except Exception:  # pragma: no cover
     HAVE_REFERENCE = False
 
-import probabilit_tpu.modeling as tpu_modeling
+import probabilit_tpu.modeling as ours_modeling
 
 pytestmark = pytest.mark.skipif(not HAVE_REFERENCE, reason="reference unavailable")
 
@@ -79,7 +79,7 @@ MODELS = [
 class TestDistributionalParity:
     @pytest.mark.parametrize("name,builder", MODELS, ids=[m[0] for m in MODELS])
     def test_two_sample_ks(self, name, builder):
-        ours = _build_and_sample(tpu_modeling, builder, seed=0)
+        ours = _build_and_sample(ours_modeling, builder, seed=0)
         theirs = _build_and_sample(ref_modeling, builder, seed=1)
         # Discrete models need a continuity correction-free comparison:
         # compare category frequencies instead of KS.
@@ -96,7 +96,7 @@ class TestDistributionalParity:
 
     @pytest.mark.parametrize("name,builder", MODELS, ids=[m[0] for m in MODELS])
     def test_summary_statistics(self, name, builder):
-        ours = _build_and_sample(tpu_modeling, builder, seed=0)
+        ours = _build_and_sample(ours_modeling, builder, seed=0)
         theirs = _build_and_sample(ref_modeling, builder, seed=1)
         scale = max(abs(theirs.mean()), theirs.std(), 1e-12)
         assert abs(ours.mean() - theirs.mean()) / scale < 0.02
@@ -111,7 +111,7 @@ class TestCorrelationParity:
             sink = (a + b).correlate(a, b, corr_mat=np.array([[1, 0.5], [0.5, 1]]))
             return sink, a, b
 
-        ours_sink, oa, ob = build(tpu_modeling)
+        ours_sink, oa, ob = build(ours_modeling)
         ours_sink.sample(50_000, random_state=0)
         ours_corr = np.corrcoef(
             np.asarray(oa.samples_, np.float64), np.asarray(ob.samples_, np.float64)

@@ -114,10 +114,10 @@ class TestStreamedSensitivity:
                           block_size=2**13)
         assert res[(x, "loc")] == pytest.approx(5.0, abs=1e-3)
         assert abs(res[(x, "scale")]) < 0.1
-        # Identical draw semantics to estimate()'s XLA executor: the
+        # Identical draw semantics to estimate(): the
         # streamed VALUE matches exactly (same keys, same Chan merge).
         est = streaming.estimate(
-            y, 2**16, block_size=2**13, random_state=0, executor="xla"
+            y, 2**16, block_size=2**13, random_state=0
         )
         assert res.value == pytest.approx(est["mean"], abs=1e-4)
 
@@ -289,7 +289,7 @@ class TestStreamedTailGradients:
         x = pt.Distribution("norm", loc=0.0, scale=1.0)
         carry = jax.device_get(
             streaming._estimate_carry(
-                x, 1 << 15, 1 << 12, jax.random.PRNGKey(0), "xla",
+                x, 1 << 15, 1 << 12, jax.random.PRNGKey(0),
                 None, levels, _compile.resolve_correlator("imanconover"),
             )
         )
